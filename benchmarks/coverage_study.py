@@ -1,4 +1,4 @@
-"""Credible-interval calibration study (VERDICT r4 item 4).
+"""Credible-interval calibration study.
 
 Measures the quirks-off 95% pixel-unit credible interval's empirical
 coverage of the true synthetic edge across configs × seeds, with the

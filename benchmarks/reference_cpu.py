@@ -25,7 +25,7 @@ Semantics follow the reference per SURVEY.md §2/§3:
   (gpet.py:263-266).
 
 This is deliberately plain NumPy + SciPy on the host — the performance
-baseline the TPU framework is measured against.
+baseline the JAX framework is measured against.
 """
 
 from __future__ import annotations
@@ -216,7 +216,7 @@ class ReferenceTracerCPU:
         # One unconditional thresholding pass before the decay loop so the
         # binned set is always defined (the upstream reference leaves
         # best/bins/uniq unbound when the loop body never runs,
-        # gpet.py:589-616 — latent NameError fixed here, ADVICE round 1).
+        # gpet.py:589-616 — latent NameError fixed here).
         n_pix, i = n_pre, 0
         mask = scores >= self.score_thresh
         best, bs = pixels[mask], scores[mask]

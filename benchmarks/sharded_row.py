@@ -2,12 +2,12 @@
 ``sharded_trace_batch`` on a (data, sample) mesh, with the collective
 footprint extracted from the compiled HLO.
 
-Runs standalone so it can self-provision a virtual CPU mesh (the driver
-environment has one TPU chip): ``python -m benchmarks.sharded_row
-[--mesh 2,4] [--size 128] [--n-samples 512] [--frames 4]``. The suite
-invokes it as a subprocess and merges its JSON line.
+Runs standalone on a virtual CPU mesh of the mesh's size:
+``python -m benchmarks.sharded_row [--mesh 2,4] [--size 128]
+[--n-samples 512] [--frames 4]``. The suite invokes it as a subprocess
+and merges its JSON line.
 
-The wall-clock on a virtual CPU mesh is NOT a TPU number — the row's
+The wall-clock on a virtual CPU mesh is NOT a device number — the row's
 value is (a) the sharded program compiles and runs on a real multi-device
 mesh topology, and (b) the communication volume is pinned: per outer
 iteration the sp axis needs exactly ONE all-gather of the (S,) cost
@@ -102,7 +102,7 @@ def main(argv=None):
                   f"{n_sample}",
         "value": round(ms, 2),
         "unit": "ms (virtual CPU mesh — topology/communication check, "
-                "not TPU perf)",
+                "not device perf)",
         "devices": n_data * n_sample,
         "frames": args.frames,
         "converged": bool(np.all(np.asarray(res.converged))),

@@ -1,5 +1,5 @@
 """End-to-end demo: the reference README walkthrough (README.md:37-89)
-on the TPU-native framework.
+on the JAX framework.
 
 Builds the noisy sinusoidal test image with occlusion gaps, computes the
 gradient image with the extended-Sobel kernel, traces the edge with fixed

@@ -1,4 +1,4 @@
-"""TPU-native Gaussian-process edge tracing.
+"""Gaussian-process edge tracing in JAX.
 
 A from-scratch JAX/XLA re-design of ``jaburke166/gaussian_process_edge_trace``
 (Burke & King, IEEE TIP 2022): the recursive-Bayesian edge tracer compiles to

@@ -161,10 +161,6 @@ def cmd_demo(args):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="gaussian_process_edge_trace_tpu")
-    ap.add_argument("--compilation-cache", default=None,
-                    help="directory for JAX's persistent compilation cache "
-                         "(first-trace compile drops from ~25s to ~1s on "
-                         "warm starts)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     t = sub.add_parser("trace", help="trace one edge in an image")
@@ -221,10 +217,9 @@ def main(argv=None):
     d.set_defaults(fn=cmd_demo)
 
     args = ap.parse_args(argv)
-    if args.compilation_cache:
-        import jax
-        jax.config.update("jax_compilation_cache_dir",
-                          args.compilation_cache)
+    from gaussian_process_edge_trace_tpu.utils.cache import (
+        enable_compilation_cache)
+    enable_compilation_cache()
     args.fn(args)
 
 

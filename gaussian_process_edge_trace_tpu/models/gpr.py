@@ -1,6 +1,6 @@
 """Functional Gaussian-process regression core (mask-aware, jit-first).
 
-TPU-native replacement for the vendored sklearn fork
+JAX replacement for the vendored sklearn fork
 (reference: sklearn_gpr.py:31-610). Everything operates on fixed-shape
 padded observation buffers (``mask`` marks valid points) so the whole
 tracer compiles to one XLA program.
@@ -11,12 +11,14 @@ Key design decisions vs the reference:
   replaces ``predict(return_cov=True)`` + SVD ``multivariate_normal``
   (sklearn_gpr.py:460-473): posterior draws are
   ``f* = m + f0(X*) + K*(K+Σ)⁻¹(y - f0(X) - ε)`` with a *precomputed*
-  prior Cholesky over the x-grid, so per-iteration cost is O(E·n²) MXU
+  prior Cholesky over the x-grid, so per-iteration cost is O(E·n²)
   matmuls rather than an O(E³) dense factorisation per call. Exact same
   posterior mean and covariance in exact arithmetic (see PAPERS.md,
   "Efficiently Sampling Functions from Gaussian Process Posteriors").
-- **LML gradients via autodiff** through the Cholesky, deleting the
-  reference's 70 lines of einsum gradient code (sklearn_gpr.py:548-580).
+- **LML gradients**: :func:`log_marginal_likelihood` is differentiated by
+  autodiff through the Cholesky; the tracer's final fit evaluates many
+  θ at once with :func:`batched_lml`, which uses the reference's
+  analytic trace formula (sklearn_gpr.py:548-580) in batched form.
 - The reference's ``normalize_y=True`` fork removes the mean but does NOT
   scale (sklearn_gpr.py:225-240); :func:`gp_fit` mirrors that.
 """
@@ -45,7 +47,7 @@ class GPState(NamedTuple):
 def safe_cholesky(K, jitter_scales=(0.0, 1e-5, 1e-3)):
     """Lower Cholesky with branchless jitter escalation.
 
-    The TPU compute path is float32; near-singular RBF Grams (condition
+    The device compute path is float32; near-singular RBF Grams (condition
     numbers approaching 1/eps_f32) can make a plain Cholesky produce NaNs.
     The reference's failure mode is an exception with advice
     (sklearn_gpr.py:306-314); here we escalate a diagonal jitter instead —
@@ -57,8 +59,8 @@ def safe_cholesky(K, jitter_scales=(0.0, 1e-5, 1e-3)):
     eye = jnp.eye(n, dtype=K.dtype)
     scale = jnp.mean(jnp.diagonal(K))
     jit_arr = jnp.asarray(jitter_scales, K.dtype) * scale
-    # One BATCHED Cholesky over all candidates: same sequential depth as a
-    # single factorisation (TPU cost is depth-bound, width is ~free).
+    # One BATCHED Cholesky over all candidates: one launch instead of
+    # one per candidate.
     Ls = jnp.linalg.cholesky(K[None] + jit_arr[:, None, None] * eye[None])
     ok = jnp.all(jnp.isfinite(jnp.diagonal(Ls, axis1=-2, axis2=-1)), axis=-1)
     # First finite candidate (ascending jitter); if even the largest
@@ -192,20 +194,34 @@ def fit_and_sample(key, spec: KernelSpec, x, y, length_scale, variance,
         array on every device); a shard drawing its ``n_samples = S/k``
         slice generates the full matrix and slices columns
         ``[offset, offset + n_samples)``. Sliced-away randoms cost
-        microseconds next to the Matheron matmuls, the single-device path
+        microseconds next to the draw itself, the single-device path
         (``total_samples=None`` ⇒ no slice) is exactly the unsliced draw,
         and every mesh consumes the identical per-sample stream — the
         reference's seed-determinism contract (gpet.py:839) extended
-        across meshes. (Downstream curve values agree to f32 ulps, not
-        bits: XLA may reassociate (E, S/k) vs (E, S) contractions.)
+        across meshes.
+
+    Only z and w have a sample axis. Everything else folds into one
+    affine map per round, built at sizes that do not depend on S: with
+    W = K(X*,X) (K(X,X)+Σ)⁻¹ on the valid block,
+
+        samples = c + P z + Q w,
+        c = ȳ + s·W yc,   P = s·√variance·(F_grid − W F_x),   Q = −s·W·diag(√Σ)
+
+    (s = ``post_scale``, F the prior factor's rows at the grid and at X).
+    The (E, S) product runs through :func:`sample_map`, which on a GPU is
+    a kernel whose per-sample bits do not depend on S, so a sample-sharded
+    trace draws the curves one device draws. The S-free factors are
+    computed at HIGHEST precision: P is a difference of two prior-scale
+    terms, and TF32 rounding of either would land on the posterior spread.
 
     Returns:
       (E, n_samples) posterior curves (mean included).
     """
-    G = L_prior_unit.shape[0]
     E = grid_out.shape[0]
     S_tot = n_samples if total_samples is None else total_samples
     k_prior, k_noise = jax.random.split(key)
+    hi = jax.lax.Precision.HIGHEST
+    dt = L_prior_unit.dtype
 
     y_mean = jnp.where(centre, masked_mean(y, mask), 0.0)
     yc = jnp.where(mask, y - y_mean, 0.0)
@@ -214,9 +230,24 @@ def fit_and_sample(key, spec: KernelSpec, x, y, length_scale, variance,
     # Two-candidate jitter ladder: the sampling-round Gram carries the
     # full observation-noise diagonal (noise_y·weights, gpet.py:218-221),
     # so the unjittered factorisation is far from the f32 edge and the
-    # middle 1e-5 rung is dead weight — XLA's batched cholesky is batch-
-    # SEQUENTIAL (~12 µs per rung per iteration).
+    # middle 1e-5 rung is dead weight.
     L = safe_cholesky(K, jitter_scales=(0.0, 1e-3))
+
+    Kq = cross_gram(spec, grid_out.astype(dt), x, length_scale, variance)
+    Kq = jnp.where(mask[None, :], Kq, 0.0)                 # (E, n)
+    Wt = jnp.where(mask[:, None], cho_solve((L, True), Kq.T), 0.0)  # (n, E)
+
+    # L_prior_unit is (G, r) — the host eigendecomposition truncated to
+    # the prior's numerical rank (trace/driver.py::prior_factor). The
+    # output grid is contiguous within the extended grid (both are
+    # integer pixel columns), so its rows are a dynamic slice.
+    F_grid = jax.lax.dynamic_slice_in_dim(L_prior_unit, grid_out[0], E,
+                                          axis=0)          # (E, r)
+    F_x = jnp.take(L_prior_unit, x_idx, axis=0)            # (n, r)
+    c = y_mean + post_scale * jnp.dot(yc, Wt, precision=hi)          # (E,)
+    P = (post_scale * jnp.sqrt(variance)) * (
+        F_grid - jnp.dot(Wt.T, F_x, precision=hi))         # (E, r)
+    Q = -post_scale * Wt.T * jnp.sqrt(jnp.maximum(diag_noise, 0.0))[None, :]
 
     def local_slice(a):
         if S_tot == n_samples:
@@ -224,51 +255,29 @@ def fit_and_sample(key, spec: KernelSpec, x, y, length_scale, variance,
         return jax.lax.dynamic_slice_in_dim(a, sample_offset, n_samples,
                                             axis=1)
 
-    # Prior draws over the extended grid: sqrt(variance) * L_unit @ z.
-    # L_prior_unit is (G, r) — the host eigendecomposition truncated to
-    # the prior's numerical rank (trace/driver.py::prior_factor): the
-    # stream is DEFINED over the (r, total_samples) draw, and the matmul
-    # plus the normal generation shrink ~G/r ≈ 20× at the big configs.
-    r = L_prior_unit.shape[1]
-    z = local_slice(jax.random.normal(k_prior, (r, S_tot),
-                                      dtype=L_prior_unit.dtype))  # (r, S)
-    f0 = jnp.sqrt(variance) * (L_prior_unit @ z)          # (G, S)
-
-    # Heteroscedastic noise draws at the training points.
+    # Prior draws (r, S) and heteroscedastic noise draws at the training
+    # points (n, S).
+    z = local_slice(jax.random.normal(k_prior, (L_prior_unit.shape[1],
+                                                S_tot), dtype=dt))
     w = local_slice(jax.random.normal(k_noise, (x.shape[0], S_tot),
-                                      dtype=f0.dtype))    # (n, S)
-    eps = jnp.sqrt(jnp.maximum(diag_noise, 0.0))[:, None] * w
+                                      dtype=dt))
+    return sample_map(c.astype(dt), P.astype(dt), z, Q.astype(dt), w)
 
-    # f0 at the training points. The row gather and the (n, G) @ (G, S)
-    # HIGHEST one-hot contraction are bitwise-identical; which is faster
-    # flips with S (device-profiled in a fused extract+resid+solve chain:
-    # take wins ≤16k samples — 0.18 vs 0.28 ms at S=16k — the one-hot's
-    # MXU work amortises past ~32k where the gather turns HBM-bound:
-    # 0.90 vs 1.31 ms at S=64k). Under sample-axis sharding
-    # f0.shape[1] is the PER-SHARD S — by design: the gather/matmul
-    # runs per device on the local (G, S_local) slice, so the local
-    # width is what the 32768 crossover was profiled against (a global
-    # S=64k split 8 ways does 8k-wide gathers, the fast regime).
-    if f0.shape[1] <= 32768:
-        f0_x = jnp.take(f0, x_idx, axis=0)
-    else:
-        sel = (x_idx[:, None] == jnp.arange(G, dtype=x_idx.dtype)[None, :]
-               ).astype(f0.dtype)
-        f0_x = jnp.matmul(sel, f0, precision=jax.lax.Precision.HIGHEST)
 
-    resid = jnp.where(mask[:, None], yc[:, None] - f0_x - eps, 0.0)
-    A = cho_solve((L, True), resid)                        # (n, S)
-    A = jnp.where(mask[:, None], A, 0.0)
+def use_draw_kernel() -> bool:
+    """Whether :func:`sample_map` runs the GPU kernel
+    (ops/posterior_draw.py) — on a GPU always, elsewhere never."""
+    return jax.default_backend() == "gpu"
 
-    Kq = cross_gram(spec, grid_out.astype(f0.dtype), x, length_scale,
-                    variance)
-    Kq = jnp.where(mask[None, :], Kq, 0.0)                 # (E, n)
 
-    # The output grid is contiguous within the extended grid (both are
-    # integer pixel columns), so f0 restriction is a dynamic slice.
-    f0_grid = jax.lax.dynamic_slice_in_dim(f0, grid_out[0], E, axis=0)
-    samples = y_mean + post_scale * (f0_grid + Kq @ A)     # (E, S)
-    return samples
+def sample_map(c, P, z, Q, w):
+    """(E, S) ``c[:, None] + (P @ z + Q @ w)``: the GPU kernel, whose
+    per-sample bits do not depend on S, or plain ``jnp`` elsewhere."""
+    from gaussian_process_edge_trace_tpu.ops.posterior_draw import (
+        posterior_draw, posterior_draw_reference)
+    if use_draw_kernel():
+        return posterior_draw(c, P, z, Q, w)
+    return posterior_draw_reference(c, P, z, Q, w)
 
 
 def log_marginal_likelihood(spec: KernelSpec, x, yc, mask, theta,
@@ -315,22 +324,19 @@ def log_marginal_likelihood(spec: KernelSpec, x, yc, mask, theta,
 
 def batched_lml(spec: KernelSpec, x, yc, mask, thetas, noise_weight,
                 jitter=1e-6, with_grad=False):
-    """LML of MANY θ = (log c, log ℓ, log σn²) at once, Pallas-batched.
+    """LML of MANY θ = (log c, log ℓ, log σn²) at once.
 
     Same value as :func:`log_marginal_likelihood` per row (pd_guard=False
-    semantics: non-PD Grams yield NaN for the caller to sanitise), but the
-    B Cholesky factorisations run batch-on-lanes
-    (:mod:`..ops.pallas_chol`) instead of XLA's sequential batched
-    cholesky — ~8× at the screen/polish batch sizes. Gradients are the
-    reference's analytic trace formula (sklearn_gpr.py:548-580):
-    ∂LML/∂θᵢ = ½ tr((ααᵀ − K⁻¹)·∂K/∂θᵢ), with K⁻¹ from one batched
-    triangular solve pair — no autodiff through the custom kernel.
+    semantics: non-PD Grams yield NaN for the caller to sanitise), with
+    the B Cholesky factorisations and triangular solves as one batched
+    (B, n, n) ``jnp.linalg.cholesky`` / ``solve_triangular`` each.
+    Gradients are the reference's analytic trace formula
+    (sklearn_gpr.py:548-580): ∂LML/∂θᵢ = ½ tr((ααᵀ − K⁻¹)·∂K/∂θᵢ), with
+    K⁻¹ from one batched triangular solve — no autodiff.
 
     Args:
       thetas: (B, 3). Returns (B,) values, or (values, (B, 3) grads).
     """
-    from gaussian_process_edge_trace_tpu.ops.pallas_chol import (
-        backward_solve_auto, cholesky_auto, forward_solve_auto)
     from gaussian_process_edge_trace_tpu.models.kernels import (
         dk_unit_dlog_ls, k_unit)
 
@@ -360,9 +366,9 @@ def batched_lml(spec: KernelSpec, x, yc, mask, thetas, noise_weight,
                         + diag_vals[:, None, :]
                         + jnp.where(mask, 0.0, 1.0)[None, None, :]))
 
-    L = cholesky_auto(K)
-    w1 = forward_solve_auto(L, jnp.broadcast_to(
-        yc[None, :, None], (B, n, 1)))                     # (B, n, 1)
+    L = jnp.linalg.cholesky(K)
+    w1 = solve_triangular(L, jnp.broadcast_to(
+        yc[None, :, None], (B, n, 1)), lower=True)         # (B, n, 1)
     quad = jnp.sum(w1[..., 0] ** 2, axis=1)
     diagL = jnp.diagonal(L, axis1=1, axis2=2)
     logdet = jnp.sum(jnp.log(diagL), axis=1)
@@ -372,11 +378,11 @@ def batched_lml(spec: KernelSpec, x, yc, mask, thetas, noise_weight,
     if not with_grad:
         return vals
 
-    alpha = backward_solve_auto(L, w1)[..., 0]             # (B, n)
+    alpha = solve_triangular(L, w1, lower=True, trans=1)[..., 0]  # (B, n)
     alpha = jnp.where(mask[None, :], alpha, 0.0)
-    Linv = forward_solve_auto(
-        L, jnp.broadcast_to(eye[None], (B, n, n)))         # (B, n, n)
-    # K⁻¹ = L⁻ᵀ L⁻¹ — batched matmul (MXU-efficient, unlike cholesky).
+    Linv = solve_triangular(
+        L, jnp.broadcast_to(eye[None], (B, n, n)), lower=True)  # (B, n, n)
+    # K⁻¹ = L⁻ᵀ L⁻¹ as one batched matmul.
     Kinv = jnp.einsum("bki,bkj->bij", Linv, Linv,
                       precision=jax.lax.Precision.HIGHEST)
     A = alpha[:, :, None] * alpha[:, None, :] - Kinv

@@ -9,8 +9,8 @@ is more than sufficient, and unlike scipy it compiles into the trace
 program and **vmaps over the 12 restarts** (sklearn_gpr.py:284-288)
 instead of looping them on the host.
 
-TPU-first structure (the objective is a Gram+Cholesky LML — tiny but
-latency-bound when serialised):
+Accelerator-first structure (the objective is a Gram+Cholesky LML —
+tiny but latency-bound when serialised):
 
 - the Armijo line search evaluates ALL backtracking candidates in one
   **batched** objective call (``vmap`` over step sizes) and selects the
@@ -59,7 +59,7 @@ def minimize_lbfgs_b(fun, x0, lb, ub, max_iters=64, history=8,
 
     ``fun`` must be jax-traceable and vmappable. All shapes are static;
     the solve is a ``lax.while_loop`` so it can itself be vmapped across
-    restarts (inactive lanes simply idle until all finish).
+    restarts (converged restarts simply idle until all finish).
     """
     d = x0.shape[0]
     x0 = _project(x0, lb, ub)

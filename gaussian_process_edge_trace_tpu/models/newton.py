@@ -2,8 +2,8 @@
 
 The converged-fit hyperparameter optimisation (gpet.py:240-248 →
 sklearn_gpr.py:254-295) is a 3-dimensional LML maximisation. The reference
-runs scipy L-BFGS-B to convergence from 13 starts; on TPU every objective
-evaluation is a latency-bound Gram+Cholesky chain, so sequential depth —
+runs scipy L-BFGS-B to convergence from 13 starts; on an accelerator every
+objective evaluation is a latency-bound Gram+Cholesky chain, so sequential depth —
 not FLOPs — is the cost. This module trades L-BFGS's long iteration chains
 for:
 
@@ -40,93 +40,6 @@ class NewtonResult(NamedTuple):
 _LAMBDAS = (0.0, 1e-3, 1e-1, 10.0, 1e3)
 
 
-def screen_and_polish(neg, starts, lb, ub, n_polish=8, iters=6,
-                      lambdas=_LAMBDAS, fd_hessian=False,
-                      fd_h=1e-3) -> NewtonResult:
-    """Minimise ``neg`` over the box ``[lb, ub]`` from ``starts``.
-
-    Args:
-      neg: scalar objective θ -> value (jax-traceable, vmappable; may
-        return +inf/-inf outside its domain).
-      starts: (n_starts, d) candidate starting points (callers typically
-        concatenate the reference's restarts with a static grid).
-      lb/ub: (d,) box bounds.
-      n_polish: how many screened starts to polish.
-      iters: damped-Newton iterations (each = 2 batched objective units).
-      fd_hessian: approximate the Hessian by central differences of the
-        gradient in ONE (2d+1)·P-point ``value_and_grad`` call. NOT the
-        default: XLA's batched cholesky is batch-SEQUENTIAL, so the wider
-        FD gradient batch measured slower in-program than jax.hessian on
-        P points (16.1 vs 9.0 ms) — the FD construction pays off only
-        with a genuinely batch-parallel objective
-        (:func:`screen_and_polish_batched`). The Levenberg ladder +
-        value-based acceptance absorb the O(h²)+O(eps/h) error.
-    """
-    obj = jax.value_and_grad(neg)
-    hess = jax.hessian(neg)
-    d_dim = starts.shape[1]
-    lam = jnp.asarray(lambdas, starts.dtype)
-    eye = jnp.eye(d_dim, dtype=starts.dtype)
-    offs = jnp.concatenate([jnp.zeros((1, d_dim), starts.dtype),
-                            fd_h * eye, -fd_h * eye])   # (2d+1, d)
-
-    f0s = jax.vmap(neg)(starts)
-    n_polish = min(n_polish, starts.shape[0])
-    _, top = jax.lax.top_k(-jnp.where(jnp.isfinite(f0s), f0s, jnp.inf),
-                           n_polish)
-    X = starts[top]                                   # (P, d)
-    F = jnp.where(jnp.isfinite(f0s[top]), f0s[top], jnp.inf)
-
-    def grad_hess(X):
-        if not fd_hessian:
-            (_, G), H = jax.vmap(obj)(X), jax.vmap(hess)(X)
-            return G, H
-        P = X.shape[0]
-        pts = (X[None, :, :] + offs[:, None, :]).reshape(-1, d_dim)
-        _, gv = jax.vmap(obj)(pts)
-        gv = gv.reshape(2 * d_dim + 1, P, d_dim)
-        gp = jnp.where(jnp.isfinite(gv[1:1 + d_dim]), gv[1:1 + d_dim], 0.0)
-        gm = jnp.where(jnp.isfinite(gv[1 + d_dim:]), gv[1 + d_dim:], 0.0)
-        H = jnp.transpose((gp - gm) / (2.0 * fd_h), (1, 0, 2))
-        H = 0.5 * (H + jnp.transpose(H, (0, 2, 1)))   # symmetrise
-        return gv[0], H
-
-    def step(carry, _):
-        X, F = carry
-        G, H = grad_hess(X)
-        G = jnp.where(jnp.isfinite(G), G, 0.0)
-        H = jnp.where(jnp.isfinite(H), H, 0.0)
-        scale = jnp.maximum(
-            jnp.max(jnp.abs(jnp.diagonal(H, axis1=1, axis2=2)), axis=1),
-            1.0)                                      # (P,)
-        Hd = (H[:, None]
-              + (lam[None, :, None, None]
-                 * scale[:, None, None, None]) * eye)  # (P, L, d, d)
-        rhs = jnp.broadcast_to(G[:, None, :, None],
-                               Hd.shape[:2] + (G.shape[1], 1))
-        d = -jnp.linalg.solve(Hd, rhs)[..., 0]        # (P, L, d)
-        # Projected-gradient fallback keeps progress when every damped
-        # Newton system is useless (e.g. zero Hessian on a -inf plateau).
-        gstep = -0.5 * G / jnp.maximum(
-            jnp.linalg.norm(G, axis=1, keepdims=True), 1e-12)
-        cand = jnp.concatenate([X[:, None] + d, (X + gstep)[:, None]],
-                               axis=1)                # (P, L+1, d)
-        cand = jnp.clip(cand, lb, ub)
-        fc = jax.vmap(jax.vmap(neg))(cand)            # (P, L+1)
-        fc = jnp.where(jnp.isfinite(fc), fc, jnp.inf)
-        j = jnp.argmin(fc, axis=1)
-        fbest = jnp.take_along_axis(fc, j[:, None], axis=1)[:, 0]
-        xbest = jnp.take_along_axis(cand, j[:, None, None], axis=1)[:, 0]
-        better = fbest < F                            # monotone
-        X = jnp.where(better[:, None], xbest, X)
-        F = jnp.where(better, fbest, F)
-        return (X, F), None
-
-    (X, F), _ = jax.lax.scan(step, (X, F), None, length=iters)
-    i = jnp.argmin(jnp.where(jnp.isfinite(F), F, jnp.inf))
-    return NewtonResult(x=X[i], f=F[i])
-
-
 def lml_screen_grid(lb, ub, dtype=jnp.float32):
     """Static screen grid over the (log c, log ℓ, log σn²) LML box.
 
@@ -134,11 +47,10 @@ def lml_screen_grid(lb, ub, dtype=jnp.float32):
     that matter (the LML is flat in log-noise once the noise is far below
     the signal) — appended to the reference's 13 random starts, this makes
     the batched screen a global search the short Newton polish can trust.
-    96 + 13 starts fit ONE 128-lane Pallas Cholesky group; the earlier
-    5×5 grid (163 total) forced two sequential lane groups and measured
-    ~0.4 ms slower per final fit with no effect on the scipy-gap sweep
-    (the c/ℓ dims are smooth — the Newton polish recovers a coarser
-    screen; the noise decades are what the polish cannot basin-hop).
+    96 + 13 starts; an earlier 5×5 grid (163 total) had no effect on the
+    scipy-gap sweep (the c/ℓ dims are smooth — the Newton polish recovers
+    a coarser screen; the noise decades are what the polish cannot
+    basin-hop).
     """
     cs = jnp.linspace(lb[0], ub[0], 4)
     ls = jnp.linspace(lb[1], ub[1], 4)
@@ -149,17 +61,19 @@ def lml_screen_grid(lb, ub, dtype=jnp.float32):
     return G.astype(dtype)
 
 
-def screen_and_polish_batched(values_fn, vg_fn, starts, lb, ub,
-                              n_polish=8, iters=6, lambdas=_LAMBDAS,
-                              fd_h=1e-3) -> NewtonResult:
-    """:func:`screen_and_polish` on BATCHED objective callables.
+def screen_and_polish(values_fn, vg_fn, starts, lb, ub, n_polish=8,
+                      iters=6, lambdas=_LAMBDAS,
+                      fd_h=1e-3) -> NewtonResult:
+    """Minimise a batched objective over the box ``[lb, ub]`` from
+    ``starts``: screen every start, then damped-Newton-polish the
+    ``n_polish`` best for ``iters`` iterations.
 
-    For objectives whose batched evaluation is a custom kernel (the
-    Pallas-Cholesky LML, :func:`..models.gpr.batched_lml`) autodiff
-    Hessians are unavailable; the Hessian is built from central
-    differences of the batched gradient — the (2d+1)·P FD points ride the
-    same batched call, so each iteration is still two kernel invocations
-    (one gradient batch, one candidate-value batch).
+    The objective's gradient is analytic (:func:`..models.gpr.batched_lml`)
+    and its Hessian is built from central differences of that gradient —
+    the (2d+1)·P FD points ride the same batched call, so each iteration
+    is two batched objective calls (one gradient batch, one
+    candidate-value batch). The Levenberg ladder and value-based
+    acceptance absorb the O(h²)+O(eps/h) FD error.
 
     Args:
       values_fn: (B, d) -> (B,) objective values (NaN/inf allowed).

@@ -3,7 +3,7 @@
 Replaces the reference's ``scipy.integrate.simps`` calls in the curve cost
 function (reference: gpet.py:404-405). Implemented as closed-form weighted
 sums over statically-shaped arrays so a whole batch of curves reduces to
-dot products on the VPU/MXU (SURVEY.md §7 step 4).
+dot products and fused reductions (SURVEY.md §7 step 4).
 
 Semantics match ``scipy.integrate.simpson``:
 
@@ -62,11 +62,10 @@ def simpson_nonuniform(y, x=None, axis=-1, even="simpson", h=None):
         raise ValueError("pass exactly one of x / h")
     if axis == 0 and y.ndim > 1:
         # Native leading-axis path: slicing/reducing axis 0 keeps the
-        # batch on the minor (lane) axis with NO transpose. The generic
-        # path's moveaxis materialises a full copy of every operand —
-        # 21 ms/trace of the 1000×1000 S=10⁵ device profile was the
-        # (E, S) transpose feeding this quadrature from the curve cost
-        # (trace/scoring.py). Same contributions, reduced along axis 0.
+        # batch on the minor axis with NO transpose, where the generic
+        # path's moveaxis materialises a full copy of every operand (the
+        # curve cost's (E, S) samples, trace/scoring.py). Same
+        # contributions, reduced along axis 0.
         if x is not None:
             h0 = jnp.diff(jnp.asarray(x), axis=0)
         else:
@@ -122,7 +121,7 @@ def simpson_nonuniform(y, x=None, axis=-1, even="simpson", h=None):
     # upstream called scipy.integrate.simps whose historical default was
     # even='avg'; the difference is one trailing-interval term per
     # quadrature, far below every metric tolerance in the pipeline, and is
-    # documented rather than reproduced (ADVICE round 1).
+    # documented rather than reproduced.
     main = _odd_block(y[..., : n - 1], h[..., : n - 2])
     h0 = h[..., -2]
     h1 = h[..., -1]
@@ -152,13 +151,12 @@ def _simpson_axis0(y, h, even):
         return 0.5 * (y[0] + y[1]) * h[0]
 
     def _odd_block(yb, hb):
-        # Masked shifted windows instead of stride-2 slices: XLA lowers a
-        # stride-2 slice of a sublane-major (E, S) array as a gather,
-        # which is HBM-bound at scale — 99 ms of the 1000², S=10⁵ trace
-        # (5.2 ms/iteration, device-profiled r4) was four such gathers.
-        # Evaluating the pair formula at EVERY window from contiguous
-        # unit-stride slices and zeroing the odd starts costs 2× the VPU
-        # flops but no gather; each kept term's arithmetic is unchanged.
+        # Masked shifted windows instead of stride-2 slices: a stride-2
+        # slice along the major axis of an (E, S) array can lower as a
+        # gather. Evaluating the pair formula at EVERY window from
+        # contiguous unit-stride slices and zeroing the odd starts costs
+        # 2× the flops but no gather; each kept term's arithmetic is
+        # unchanged.
         # ``where`` (not multiply) so division hazards at never-selected
         # windows (e.g. h=0 from a repeated x) cannot leak NaNs.
         m = yb.shape[0]                          # odd, >= 3

@@ -7,11 +7,14 @@ interpolation; FITPACK clamps out-of-domain query coordinates to the grid
 boundary per axis (verified empirically against scipy), so coordinates are
 clipped before interpolation.
 
-Pure gather + FMA; vmap/jit friendly, runs on the VPU.
+Pure gather + FMA; vmap/jit friendly.
 """
 
 from __future__ import annotations
 
+import functools
+
+import jax
 import jax.numpy as jnp
 
 
@@ -40,3 +43,31 @@ def bilinear_interp(img, rows, cols):
     top = v00 + fc * (v01 - v00)
     bot = v10 + fc * (v11 - v10)
     return top + fr * (bot - top)
+
+
+@functools.partial(jax.jit, static_argnames=("add_const",))
+def column_interp(cols, ys, add_const=0.0):
+    """Linear interpolation of ``cols[e, :]`` at rows ``ys[e, :]``.
+
+    The curve cost's gradient lookup: curve x-coordinates are exactly the
+    integer grid columns, so :func:`bilinear_interp` degenerates to a 1-D
+    interpolation down each column — two gathers from the (E, M) column
+    table, with the same boundary clamp.
+
+    Args:
+      cols: (E, M) per-column pixel values (``grad_img.T`` rows).
+      ys: (E, S) real-valued row coordinates (clamped to [0, M-1]).
+      add_const: static scalar added to every output (the curve cost's
+        ``kde_thresh`` floor), fused into the same elementwise pass.
+
+    Returns:
+      (E, S) interpolated values in ``cols.dtype``.
+    """
+    E, M = cols.shape
+    y = jnp.clip(ys, 0, M - 1)
+    r0 = jnp.clip(jnp.floor(y), 0, M - 2).astype(jnp.int32)
+    fr = (y - r0).astype(cols.dtype)
+    v0 = jnp.take_along_axis(cols, r0, axis=1)
+    v1 = jnp.take_along_axis(cols, r0 + 1, axis=1)
+    res = v0 + fr * (v1 - v0)
+    return res + add_const if add_const else res

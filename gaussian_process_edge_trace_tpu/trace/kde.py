@@ -1,6 +1,6 @@
 """Dual-mode kernel-density estimate on the pixel grid.
 
-TPU-native replacement for ``KDEpy.FFTKDE(kernel='gaussian', bw=1)``
+JAX replacement for ``KDEpy.FFTKDE(kernel='gaussian', bw=1)``
 (reference: gpet.py:455-529). FFTKDE's algorithm is *linear binning* of the
 weighted sample points onto the evaluation grid followed by convolution
 with the Gaussian kernel sampled on that grid. We reproduce exactly that
@@ -23,7 +23,7 @@ Two modes:
   deletion and zero-weighting are identical under linear binning).
   Curve x-coordinates are exactly the integer grid columns, so binning in x
   is exact and the 2-D linear binning reduces to a per-column 1-D binning —
-  a dense hat-function contraction the VPU executes in one fused reduce.
+  a dense hat-function contraction that XLA executes as one fused reduce.
 - :func:`gradient_kde` — image-gradient mode (gpet.py:503-509): sample
   points are the integer pixels with gradient above ``kde_thresh``,
   weighted by their intensity; integer points bin to a single node, so
@@ -63,20 +63,18 @@ def _toeplitz(n, taps, dtype):
 
 
 # Above this edge length the dense Toeplitz blur matmul's O(n³) loses to
-# the O(n²·taps) shifted-FMA pass (A/B'd in the full program on v5e:
-# at 502² the matmul form wins by ~0.04 ms/trace; at 1002² FMA wins the
-# whole trace 17.7 -> 16.8 ms; at 2002² the matmuls cost 28.7 ms/trace
-# vs ~2 for the FMA form). Gated PER AXIS: the axis-0 blur contracts over
-# m (cost m²·n matmul vs m·n·taps FMA) independently of n, so a 512×1536
-# image blurs axis 0 on the MXU and axis 1 as FMAs (VERDICT r3 item 7 —
-# a max(m, n) gate forced FMA on both axes when only one was long).
+# the O(n²·taps) shifted-FMA pass. Gated PER AXIS: the axis-0 blur
+# contracts over m (cost m²·n matmul vs m·n·taps FMA) independently of n,
+# so a 512×1536 image blurs axis 0 as a matmul and axis 1 as FMAs. The
+# crossover was tuned on the previous accelerator and is not yet swept on
+# the H100 (ROADMAP C5).
 _BLUR_MATMUL_MAX = 600
 
 
 def _blur_axis_fma(grid, taps, axis):
     """1-D zero-boundary convolution along ``axis`` as static-tap shifted
     FMAs (the ``comp_grad_img`` pattern, utils/image.py): pad, take the
-    2r+1 statically-offset slices, accumulate on the VPU."""
+    2r+1 statically-offset slices, accumulate elementwise."""
     r = (taps.shape[0] - 1) // 2
     n = grid.shape[axis]
     pad = [(0, 0), (0, 0)]
@@ -93,9 +91,8 @@ def _separable_blur(grid, taps, mats=None):
 
     Zero ('SAME') boundary — FFTKDE's linear convolution sees zeros beyond
     the evaluation grid too. Two forms, size-gated per axis
-    (``_BLUR_MATMUL_MAX``): banded-Toeplitz matmuls ride the MXU and win
-    at demo scale (a single-channel spatial conv wastes the MXU), while a
-    long axis blurs faster as a shifted-FMA pass. ``mats`` are precomputed
+    (``_BLUR_MATMUL_MAX``): banded-Toeplitz matmuls at demo scale, while
+    a long axis blurs faster as a shifted-FMA pass. ``mats`` are precomputed
     ``blur_matrices`` — pass them inside loops (see there); a ``None``
     entry means "that axis runs as FMAs".
     """
@@ -122,7 +119,7 @@ def blur_matrices(M: int, N: int, dtype=jnp.float32,
     down as ``blur=``: XLA neither constant-folds the (n, n) build (the
     literal exceeds its folding size cap) nor hoists it out of the loop
     body (it fuses with loop-dependent consumers), so the inline form
-    re-ran every iteration (~6.6 us/iter on v5e at the demo shapes).
+    re-ran every iteration.
     Per-axis gate: each factor is ``None`` when its axis exceeds
     ``_BLUR_MATMUL_MAX`` (that axis runs as shifted FMAs and needs no
     matrix); ``None`` overall when both do.
@@ -142,26 +139,71 @@ def _minmax(grid):
     return (grid - lo) / (hi - lo)
 
 
+# Target size for one hat-contraction block: (M+2)·E·chunk elements.
+# Larger sample counts (BASELINE config 4, N_samples → 10⁵) are scanned
+# in chunks of this size instead of materialising a multi-GB tensor; the
+# demo shapes (25M elements) stay a single unchunked block. The value was
+# tuned on the previous accelerator and is not yet swept on the H100
+# (ROADMAP C5).
+_CHUNK_ELEMS = 128 * 1024 * 1024
+
+
+def column_binning(y_curves, weights, M: int):
+    """Binned column masses H (M+2, E) for the curve KDE: per-column linear
+    binning as a dense hat-function contraction over the samples,
+
+        H[m, e] = Σ_s w[e, s] · max(0, 1 − |(y[e, s] + 1) − m|),
+
+    with the out-of-image deletion rule (weight 0 for y outside
+    [0, M-1], gpet.py:498-500) folded into the weights. Sample counts
+    whose (M+2, E, S) hat tensor exceeds ``_CHUNK_ELEMS`` are scanned in
+    chunks (padded samples carry zero weight)."""
+    E, S = y_curves.shape
+    dtype = y_curves.dtype
+    rows = jnp.arange(M + 2, dtype=dtype)
+
+    def block(yb, wb):
+        yp = yb + 1.0
+        w = jnp.broadcast_to(wb[None, :], yb.shape)
+        w = jnp.where((yb >= 0) & (yb <= M - 1), w, 0.0)
+        hat = jnp.maximum(0.0, 1.0 - jnp.abs(yp[None, :, :]
+                                             - rows[:, None, None]))
+        return jnp.sum(hat * w[None, :, :], axis=-1)      # (M+2, E)
+
+    chunk = max(1, _CHUNK_ELEMS // ((M + 2) * E))
+    if S <= chunk:
+        return block(y_curves, weights)
+    n_chunks = -(-S // chunk)
+    pad = n_chunks * chunk - S
+    yb = jnp.pad(y_curves, ((0, 0), (0, pad)))
+    wb = jnp.pad(weights, (0, pad))
+    yb = yb.reshape(E, n_chunks, chunk)
+    wb = wb.reshape(n_chunks, chunk)
+
+    def body(carry, inp):
+        yc, wc = inp
+        return carry + block(yc, wc), None
+
+    # Seed the scan carry from the FIRST chunk instead of jnp.zeros: under
+    # shard_map (check_vma=True) a literal-zeros carry is sample-invariant
+    # typed while the chunk contributions are varying-typed, which rejects
+    # the scan on any mesh. Identical f32 arithmetic: 0 + block == block.
+    ycs = jnp.moveaxis(yb, 1, 0)
+    H0 = block(ycs[0], wb[0])
+    H, _ = jax.lax.scan(body, H0, (ycs[1:], wb[1:]))
+    return H
+
+
 def curve_kde_raw(y_curves, weights, M: int, N: int, x_start: int,
-                  radius: int = DEFAULT_RADIUS, bw: float = 1.0,
-                  use_pallas_binning: bool = False, blur=None):
+                  radius: int = DEFAULT_RADIUS, bw: float = 1.0, blur=None):
     """Un-normalised curve KDE (binning + blur + crop, no min-max).
 
     The building block for sample-axis sharding: the blurred grid is
     additive over curves, so per-device partial grids can be ``psum``-med
     over the sample mesh axis before the global min-max normalisation.
     """
-    E, S = y_curves.shape
     dtype = y_curves.dtype
-
-    # Per-column linear binning: hat-function contraction over samples
-    # with the out-of-image deletion rule (gpet.py:498-500) folded into
-    # the weights. Pallas kernel on TPU (VMEM-resident hat), dense
-    # contraction elsewhere. H[m, e] = Σ_s w[e,s]·max(0, 1-|y[e,s]+1-m|).
-    from gaussian_process_edge_trace_tpu.trace.pallas_kde import (
-        column_binning)
-    H = column_binning(y_curves, weights, M,
-                       use_pallas=use_pallas_binning)  # (M+2, E)
+    H = column_binning(y_curves, weights, M)               # (M+2, E)
 
     # Place the E columns at padded-grid columns x_start+1 .. x_start+E.
     grid = jnp.zeros((M + 2, N + 2), dtype=dtype)

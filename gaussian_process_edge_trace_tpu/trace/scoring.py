@@ -2,9 +2,11 @@
 
 Replaces the reference's serial per-sample Python loop
 (reference: gpet.py:414-451 looping gpet.py:371-410) with one batched
-computation over all N_samples curves: a Pallas per-column interpolation
-kernel for the gradient lookups, closed-form Simpson quadratures over
-the whole batch, and ``lax.top_k`` column extraction.
+computation over all N_samples curves: per-column interpolation of the
+gradient image, closed-form Simpson quadratures over the whole batch, and
+``lax.top_k`` column extraction. On an NVIDIA GPU the interpolation and
+both quadratures run as one Pallas kernel (ops/fused_cost.py) that never
+writes an (E, S) intermediate.
 
 Cost semantics (gpet.py:392-408), for a curve (x_grid, y) with unit x
 spacing:
@@ -32,17 +34,24 @@ import functools
 import jax
 import jax.numpy as jnp
 
+from gaussian_process_edge_trace_tpu.ops.fused_cost import fused_curve_costs
 from gaussian_process_edge_trace_tpu.ops.integrate import (
     simpson_nonuniform, simpson_weights)
-from gaussian_process_edge_trace_tpu.ops.pallas_interp import (
-    column_interp, fused_curve_cost)
+from gaussian_process_edge_trace_tpu.ops.interp import column_interp
 
 
-@functools.partial(jax.jit, static_argnames=("kde_thresh", "even",
-                                              "return_samples_t"))
+def use_fused_cost(E: int) -> bool:
+    """The choice between the fused kernel and the plain ``jnp`` curve
+    cost: the kernel on a GPU for every grid of at least 4 columns, the
+    plain path elsewhere. On the GPU a sample's cost from the kernel does
+    not depend on how many samples are scored with it, which the exact
+    sample-sharded trace relies on (parallel/sharded.py)."""
+    return jax.default_backend() == "gpu" and E >= 4
+
+
+@functools.partial(jax.jit, static_argnames=("kde_thresh", "even"))
 def curve_costs(grad_img, x_grid, y_samples, kde_thresh: float = 1e-3,
-                cols=None, even: str = "simpson",
-                return_samples_t: bool = False):
+                cols=None, even: str = "simpson"):
     """Costs of all sampled curves.
 
     Args:
@@ -51,26 +60,17 @@ def curve_costs(grad_img, x_grid, y_samples, kde_thresh: float = 1e-3,
       y_samples: (E, S) posterior curves.
       cols: optional precomputed (E, M) per-column pixel values
         (``grad_img.T`` sliced to the x-grid). Pass the loop-invariant
-        ``TracerData.grad_cols`` inside the trace loop — re-materialising
-        the transpose as a Pallas operand every iteration measured 2.5 ms
-        per call on v5e vs 0.33 ms with a resident operand.
+        ``TracerData.grad_cols`` inside the trace loop so the transpose is
+        not rebuilt every iteration.
       even: even-point Simpson rule; ``"avg"`` reproduces the historical
         ``scipy.integrate.simps`` default the upstream called
         (gpet.py:404-405) bit-faithfully.
 
-      return_samples_t: also return a (S, E_pad) transposed copy of
-        ``y_samples`` produced inside the fused kernel (or ``None`` when
-        the fused path/threshold doesn't engage) — ``best_curves`` then
-        extracts the top-K by fast major-dim row takes instead of forcing
-        a full (E, S) layout-transpose copy (22 ms at 1000², S=10⁵).
-
     Returns:
-      (S,) costs (lower = better) — or ``(costs, samples_t)`` when
-      ``return_samples_t``.
+      (S,) costs (lower = better).
     """
-    E, S = y_samples.shape
-    M, N = grad_img.shape
-    dtype = y_samples.dtype
+    E = y_samples.shape[0]
+    M = grad_img.shape[0]
 
     if cols is None:
         # Gradient values along every curve: slice the E contiguous
@@ -78,22 +78,17 @@ def curve_costs(grad_img, x_grid, y_samples, kde_thresh: float = 1e-3,
         cols = jax.lax.dynamic_slice(
             grad_img.T, (x_grid[0], jnp.zeros((), x_grid.dtype)), (E, M))
 
-    # Fused path (TPU, even E, eligible shapes): interp AND both Simpson
-    # quadratures inside one Pallas pass — nothing (E, S)-shaped touches
-    # HBM. Even E ⇒ both quadratures have odd point counts, so the
-    # legacy even='avg' and modern rules coincide and the reduction below
-    # is the bitwise-same composite pair rule, summed per-row per-block
-    # (f32 reassociation only vs the unfused reduce fusions —
-    # ops/pallas_interp.fused_curve_cost docstring).
-    fused = fused_curve_cost(cols, y_samples, kde_thresh=kde_thresh,
-                             want_transpose=return_samples_t)
-    if fused is not None:
-        line_integral, arc_length, samples_t = fused
-        costs = (arc_length / line_integral).astype(dtype)
-        return (costs, samples_t) if return_samples_t else costs
-    # The +kde_thresh floor (gpet.py:392) rides the interp kernel's
-    # epilogue: issued separately it is a full read+write pass over the
-    # (E, S) result — 23 ms of the 1000², S=10⁵ device profile.
+    if use_fused_cost(E):
+        return fused_curve_costs(cols, y_samples, kde_thresh=kde_thresh,
+                                 even=even).astype(y_samples.dtype)
+    return plain_curve_costs(cols, x_grid, y_samples, kde_thresh, even)
+
+
+def plain_curve_costs(cols, x_grid, y_samples, kde_thresh: float = 1e-3,
+                      even: str = "simpson"):
+    """:func:`curve_costs` in plain ``jnp`` on the (E, M) columns ``cols``
+    — the path off the GPU, and the GPU kernel's reference."""
+    dtype = y_samples.dtype
     grad_score = column_interp(
         cols, y_samples, add_const=kde_thresh).astype(dtype)
 
@@ -101,46 +96,26 @@ def curve_costs(grad_img, x_grid, y_samples, kde_thresh: float = 1e-3,
     step = jnp.sqrt(1.0 + dy * dy)                    # Euclid = integrand
     # The curvilinear coordinate (gpet.py:397) is cumsum(step); Simpson
     # consumes it only through its interval widths diff(cumsum(step)) ==
-    # step[1:], so the widths are passed directly — the cumsum (an O(E·S)
-    # reduce-window chain per iteration) and its re-differencing never
-    # materialise. Agrees with the explicit-coordinate form to f32
-    # rounding of each width (~1 ulp).
+    # step[1:], so the widths are passed directly — the cumsum and its
+    # re-differencing never materialise. Agrees with the
+    # explicit-coordinate form to f32 rounding of each width (~1 ulp).
     line_integral = simpson_nonuniform(grad_score[:-1], h=step[1:],
                                        even=even, axis=0)
 
     # Arc-length Simpson weights are static in x (uniform unit spacing
     # over x_grid[:-1]) so that quadrature is one weighted reduce for the
-    # batch. As a (1, E) @ (E, S) matvec it wasted the MXU (M=1 sublane
-    # utilisation — 33 ms at 1000², S=10⁵); the VPU multiply+reduce also
-    # lets XLA fuse it into the Simpson window pass, which reads the same
-    # ``step`` array.
+    # batch, which XLA fuses with the pass that reads ``step``.
     arc_w = simpson_weights(x_grid[:-1].astype(dtype), even=even)
     arc_length = jnp.sum(arc_w[:, None] * step, axis=0)   # (S,)
-    costs = arc_length / line_integral
-    return (costs, None) if return_samples_t else costs
+    return arc_length / line_integral
 
 
 @functools.partial(jax.jit, static_argnames=("n_keep",))
-def best_curves(y_samples, costs, n_keep: int, samples_t=None):
+def best_curves(y_samples, costs, n_keep: int):
     """Top ``n_keep`` curves by ascending cost (gpet.py:443-449).
 
     Returns ``(best (E, n_keep), best_costs (n_keep,))``; index 0 is the
-    optimum. Extraction is a plain column ``take``: device-profiled it
-    beats the earlier (E, S) @ (S, n_keep) HIGHEST one-hot contraction at
-    every size (bitwise-identical output; 33.6 → 1.4 ms at S=10⁵).
-
-    When ``samples_t`` (the (S, E_pad) transposed copy the fused cost
-    kernel emits, curve_costs(return_samples_t=True)) is provided, the
-    extraction is a major-dim ROW take from it instead: the column take
-    otherwise makes XLA materialise a layout-transposed copy of the full
-    (E, S) array before its gather (22 ms at 1000², S=10⁵), while
-    transposing the (n_keep, E) kept slice back costs a tenth of that.
-    Bitwise the same elements either way.
+    optimum. Extraction is a plain column ``take``.
     """
     neg, idx = jax.lax.top_k(-costs, n_keep)
-    if samples_t is not None:
-        E = y_samples.shape[0]
-        best = jnp.take(samples_t, idx, axis=0).T[:E]
-    else:
-        best = jnp.take(y_samples, idx, axis=1)
-    return best, -neg
+    return jnp.take(y_samples, idx, axis=1), -neg

@@ -116,7 +116,7 @@ def select_pixels(kde_arr, grad_kde, obs_x, obs_y, obs_valid, n_pre,
     else:
         cand = dense_cand
     # Previous observations: keep if still intersected (gpet.py:571).
-    # Dense one-hot matmul instead of a scatter (TPU scatters serialise):
+    # Dense one-hot matmul instead of a scatter:
     # old_grid = 1[∃k valid: obs_y[k]=m ∧ obs_x[k]=n].
     oy = ((obs_y[None, :] == jnp.arange(M, dtype=jnp.int32)[:, None])
           & obs_valid[None, :]).astype(dtype)             # (M, K)

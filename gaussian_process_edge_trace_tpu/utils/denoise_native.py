@@ -75,8 +75,8 @@ def denoise_nl_means(image, patch_size=7, patch_distance=11, h=0.1,
 
     For every offset d in the (2·patch_distance+1)² search window, the
     per-pixel patch distance is a box filter of the shifted squared
-    difference — shifted FMAs and separable box sums only (TPU-friendly;
-    no gathers). Weights follow skimage's fast NL-means convention:
+    difference — shifted FMAs and separable box sums only (no
+    gathers). Weights follow skimage's fast NL-means convention:
     ``exp(-max(dist² - 2σ², 0) / h²)``.
     """
     img = jnp.asarray(image, jnp.float32)
@@ -182,7 +182,7 @@ def shannon_entropy(image, base=2):
 # sym2..sym16 (least-asymmetric factorization, _symlet) with
 # BayesShrink/VisuShrink soft/hard thresholding and the standard MAD
 # noise estimate.
-# Boundary handling (r5, VERDICT r4 item 8): pywt-style SYMMETRIC
+# Boundary handling: pywt-style SYMMETRIC
 # half-sample extension with the expansive coefficient layout — the same
 # boundary semantics the reference inherits through skimage → pywt
 # (gpet_utils.py:134-140); the earlier edge-pad + periodic-wrap policy
@@ -190,8 +190,7 @@ def shannon_entropy(image, base=2):
 # reconstruction is pinned across db1-db8 × odd/even sizes; BIT parity
 # with pywt is still not claimed (pywt/scikit-image are not installed
 # here to compare against, PARITY.md). Unsupported wavelet names raise
-# NotImplementedError rather than silently substituting (VERDICT r3
-# item 5).
+# NotImplementedError rather than silently substituting.
 # ---------------------------------------------------------------------------
 
 _SQRT2 = 2.0 ** 0.5
@@ -342,7 +341,7 @@ def _wavelet_filter(wavelet):
     tests/test_denoise_and_diff.py). Other pywt names (higher dbN/symN,
     coifN, biorX.Y, …) raise NotImplementedError — the reference forwards
     ``wavelet=`` to pywt (gpet_utils.py:134-140) and silent substitution
-    would be worse than refusal (VERDICT r3 item 5)."""
+    would be worse than refusal."""
     if wavelet in _DB_FILTERS:
         return _DB_FILTERS[wavelet]
     for prefix, gen, cap in (("db", _daubechies, _DB_MAX_N),

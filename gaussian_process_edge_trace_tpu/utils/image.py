@@ -1,4 +1,4 @@
-"""Image preprocessing ops (TPU-native, pure JAX).
+"""Image preprocessing ops (pure JAX).
 
 Covers the reference's ``gpet_utils`` preprocessing surface
 (reference: gp_edge_tracing/gpet_utils.py:10-158):
@@ -71,7 +71,8 @@ def normalise(img, minmax_val=(0, 1), astyp=jnp.float32):
     img = img / jnp.max(img)
     img = img * (max_val - min_val) + min_val
     if astyp in (np.float64, jnp.float64, float):
-        # TPU path stays float32; float64 only materialises under x64 mode.
+        # The device path stays float32; float64 only materialises under
+        # x64 mode.
         astyp = jnp.result_type(jnp.float64)
     return img.astype(astyp)
 
@@ -96,10 +97,10 @@ def _conv_nearest(img, kernel, norm=True):
     ph_lo, ph_hi = kh // 2, (kh - 1) // 2
     pw_lo, pw_hi = kw // 2, (kw - 1) // 2
     padded = jnp.pad(img, ((ph_lo, ph_hi), (pw_lo, pw_hi)), mode="edge")
-    # Shifted multiply-accumulate: single-channel spatial convolutions
-    # lower poorly on the TPU (no channel dimension to feed the MXU), while
-    # kh·kw shifted elementwise FMAs are pure VPU work. Taps are static
-    # Python floats, so zero taps vanish at trace time.
+    # Shifted multiply-accumulate: kh·kw shifted elementwise FMAs that XLA
+    # fuses into one pass (a single-channel spatial convolution has no
+    # channel dimension to feed a matrix unit). Taps are static Python
+    # floats, so zero taps vanish at trace time.
     H, W = img.shape
     taps = flip
     out = jnp.zeros_like(img)
@@ -126,7 +127,7 @@ def comp_grad_img(img, kernel, norm=True, astyp=jnp.float32):
     fix the flag bug; the default path is identical).
     """
     # No np.asarray on the image: a device->host conversion would force a
-    # TPU round-trip (and keep the input off-device). The kernel is a
+    # round trip (and keep the input off-device). The kernel is a
     # small host constant, passed statically as a nested tuple.
     k = np.asarray(kernel, dtype=np.float64)
     k_static = tuple(tuple(float(v) for v in row) for row in k)

@@ -141,7 +141,7 @@ def oracle_select(kde_arr, grad_kde, pre_fobs_xy, score_thresh, x_st, x_en,
     i = 0
     thresh = float(score_thresh)
     # One unconditional pass so best/bins/uniq are defined even when the
-    # decay loop never runs (upstream latent NameError, ADVICE round 1).
+    # decay loop never runs (upstream latent NameError).
     mask = scores >= thresh
     best = pixels[mask]
     best_scores = scores[mask]

@@ -61,7 +61,7 @@ def test_cli_batch_and_sequence(tmp_path, capsys):
 
 
 def test_console_script_entry_point():
-    # pyproject [project.scripts] installs `gpet-tpu` (VERDICT r2 item 9).
+    # pyproject [project.scripts] installs `gpet-tpu`.
     # Exercised when the package is installed (pip install -e .); falls
     # back to invoking the module entry the script points at.
     import shutil

@@ -171,7 +171,7 @@ def test_db_filters_are_orthonormal():
 
 @pytest.mark.parametrize("wavelet", ["db1", "db2", "db3", "db4", "db8"])
 def test_wave_dwt_perfect_reconstruction(wavelet):
-    """VERDICT r3 item 5: the db-family DWT is a true orthonormal
+    """the db-family DWT is a true orthonormal
     transform — analysis followed by synthesis is the identity, on even
     AND odd axis lengths (db8 exercises a GENERATED filter end-to-end)."""
     from gaussian_process_edge_trace_tpu.utils.denoise_native import (
@@ -218,7 +218,7 @@ def test_daubechies_generator_matches_pinned_tables():
 def test_wave_fwd_matches_numpy_oracle(wavelet, n):
     """One analysis level along one axis vs an independent direct-sum
     NumPy oracle of the SYMMETRIC-extension convolution (pywt
-    'symmetric' boundary semantics, VERDICT r4 item 8): extend by L-1
+    'symmetric' boundary semantics): extend by L-1
     half-sample-mirrored samples each side, a[k] = sum_j h[j]
     ext[2k+1+j] for k < (n+L-1)//2 (and d with the QMF highpass)."""
     from gaussian_process_edge_trace_tpu.utils.denoise_native import (
@@ -266,7 +266,7 @@ def test_db_wavelet_denoise_improves_psnr(wavelet):
 
 def test_unsupported_wavelet_refused():
     """A pywt wavelet name outside the implemented set raises instead of
-    silently computing another wavelet (VERDICT r3 item 5)."""
+    silently computing another wavelet."""
     from gaussian_process_edge_trace_tpu.utils.image import denoise
     _, noisy = _noisy_pair()
     with pytest.raises(NotImplementedError, match="coif2"):

@@ -367,7 +367,7 @@ def test_reference_quirks_off_gives_consistent_posterior():
 
 
 def test_preview_samples_seed0_stream():
-    # Parity nit (VERDICT r2 item 10): the reference previews with
+    # Parity nit: the reference previews with
     # fit_predict_GP(obs, converged=False, seed=0) (gpet.py:806); the
     # preview's default stream must be the documented seed->PRNGKey(0)
     # mapping, not an ad-hoc fold.

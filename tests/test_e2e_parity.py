@@ -50,16 +50,16 @@ def test_e2e_parity_with_cpu_reference(parity_setup):
     cfg = make_config(init, grad.shape, kernel_options=KOPT, **KW)
     data = make_data(cfg, jnp.asarray(grad), jnp.asarray(init))
     res = run_trace(cfg, data, init_state(cfg))
-    tpu_mse = float(trace_MSE(jnp.asarray(np.asarray(res.edge_trace)),
+    jax_mse = float(trace_MSE(jnp.asarray(np.asarray(res.edge_trace)),
                               jnp.asarray(true_edge)))
-    tpu_dice = float(trace_dicecoef(jnp.asarray(np.asarray(res.edge_trace)),
+    jax_dice = float(trace_dicecoef(jnp.asarray(np.asarray(res.edge_trace)),
                                     jnp.asarray(true_edge)))
 
     assert bool(res.converged)
     assert ref_iters < 48          # the CPU reference also converged
     # Metric parity: both trace the same edge to comparable quality.
-    assert ref_dice > 0.95 and tpu_dice > 0.95, (ref_dice, tpu_dice)
-    assert tpu_mse < max(4.0 * ref_mse, 25.0), (ref_mse, tpu_mse)
+    assert ref_dice > 0.95 and jax_dice > 0.95, (ref_dice, jax_dice)
+    assert jax_mse < max(4.0 * ref_mse, 25.0), (ref_mse, jax_mse)
     # Iteration counts in the same regime (both ~O(10)).
     assert abs(int(res.n_iters) - ref_iters) <= 6
 
@@ -146,7 +146,7 @@ def test_credible_interval_coverage():
     # (median 0.832, min 0.656) — the shortfall vs the nominal 95% is
     # ALGORITHM-level (function-space-only uncertainty), not ours. The
     # pinned seed measures 0.8125; 0.78 allows only numeric drift, not a
-    # calibration regression (was 0.7, VERDICT r4 item 4).
+    # calibration regression (was 0.7).
     assert cov_px >= 0.78, cov_px
     assert cov_quirk < cov_px              # the quirk interval is narrower
     assert np.all(hi - lo > 0)
@@ -159,7 +159,7 @@ def test_credible_interval_coverage_demo():
     oracle at 0.942 (min 0.934) — near-nominal on the config users
     actually run. Pinned seed 1 measures 0.982; the 0.85 floor sits below
     the 10-seed minimum so only an implementation-level calibration break
-    trips it (VERDICT r4 item 4)."""
+    trips it."""
     import numpy as np
     import jax.numpy as jnp
 

@@ -134,232 +134,27 @@ def test_bilinear_extrapolation_matches_spline():
     np.testing.assert_allclose(got, expected, atol=1e-6)
 
 
-def test_batched_cholesky_and_solves_match_jnp():
-    """Pallas batch-on-lanes Cholesky/solves vs jnp oracles (interpret
-    mode on CPU — same code path the TPU compiles)."""
-    import numpy as np
-    import jax
-    import jax.numpy as jnp
-
-    from gaussian_process_edge_trace_tpu.ops.pallas_chol import (
-        batched_backward_solve, batched_cholesky, batched_forward_solve)
-
-    rng = np.random.default_rng(0)
-    B, n, m = 5, 24, 7
-    A = rng.normal(size=(B, n, n))
-    K = jnp.asarray(A @ np.transpose(A, (0, 2, 1)) + n * np.eye(n))
-    L = batched_cholesky(K)
-    Lr = jnp.linalg.cholesky(K)
-    np.testing.assert_allclose(np.asarray(L), np.asarray(Lr),
-                               rtol=1e-6, atol=1e-8)
-    rhs = jnp.asarray(rng.normal(size=(B, n, m)))
-    np.testing.assert_allclose(
-        np.asarray(batched_forward_solve(L, rhs)),
-        np.asarray(jax.scipy.linalg.solve_triangular(Lr, rhs, lower=True)),
-        rtol=1e-6, atol=1e-8)
-    np.testing.assert_allclose(
-        np.asarray(batched_backward_solve(L, rhs)),
-        np.asarray(jax.scipy.linalg.solve_triangular(
-            jnp.transpose(Lr, (0, 2, 1)), rhs, lower=False)),
-        rtol=1e-6, atol=1e-8)
-
-
-@pytest.mark.slow
-def test_blocked_cholesky_and_solves_match_jnp(monkeypatch):
-    """Blocked panel variants (used above the in-VMEM size ceiling) vs
-    jnp oracles — panel size forced small so the CPU test exercises the
-    multi-panel path including an uneven final panel."""
-    import numpy as np
-    import jax
-    import jax.numpy as jnp
-
-    import gaussian_process_edge_trace_tpu.ops.pallas_chol as pc
-
-    monkeypatch.setattr(pc, "_DIRECT_N", 40)
-    monkeypatch.setattr(pc, "_PANEL", 24)
-    rng = np.random.default_rng(0)
-    B, n, m = 3, 100, 9
-    A = rng.normal(size=(B, n, n))
-    K = jnp.asarray(A @ np.transpose(A, (0, 2, 1)) + n * np.eye(n))
-    L = pc.cholesky_auto(K)
-    Lr = jnp.linalg.cholesky(K)
-    np.testing.assert_allclose(np.asarray(L), np.asarray(Lr),
-                               rtol=1e-6, atol=1e-9)
-    rhs = jnp.asarray(rng.normal(size=(B, n, m)))
-    np.testing.assert_allclose(
-        np.asarray(pc.forward_solve_auto(L, rhs)),
-        np.asarray(jax.scipy.linalg.solve_triangular(Lr, rhs, lower=True)),
-        rtol=1e-6, atol=1e-9)
-    np.testing.assert_allclose(
-        np.asarray(pc.backward_solve_auto(L, rhs)),
-        np.asarray(jax.scipy.linalg.solve_triangular(
-            jnp.transpose(Lr, (0, 2, 1)), rhs, lower=False)),
-        rtol=1e-6, atol=1e-9)
-
-
 @pytest.mark.parametrize("E,M,S", [(24, 72, 96), (16, 600, 64),
                                    (16, 600, 2000)])
-def test_interp_kernels_bitwise_equivalent(E, M, S):
-    """The two-level interp decomposition is BITWISE identical to the
-    direct hat kernel (ylo = y - H*hi exact in f32; reductions add exact
-    zeros) and both match the gather formulation to f32 rounding —
-    exercised in interpret mode off-TPU, compiled on TPU. M=72 runs the
-    H=4 octave of pallas_interp._H_for, M=600 the H=8 one; S=2000 at
-    M=600 exceeds the kernel's VMEM sample budget (s_blk=1536) so the
-    grid gets a ragged masked edge block (S % s_blk = 464)."""
-    import numpy as np
+def test_column_interp_matches_np_interp(E, M, S):
+    """column_interp (the curve cost's gradient lookup) equals a per-column
+    np.interp, including the clamp at both image edges: y below 0 reads
+    row 0 and y above M-1 reads row M-1."""
     import jax.numpy as jnp
 
-    from gaussian_process_edge_trace_tpu.ops import pallas_interp as pi
+    from gaussian_process_edge_trace_tpu.ops import column_interp
 
-    assert pi._H_for(M) == (4 if M <= 512 else 8)
     rng = np.random.default_rng(0)
-    cols = jnp.asarray(rng.random((E, M)), jnp.float32)
-    # Mix of interior points, exact integers, and out-of-domain values.
-    ys = jnp.asarray(np.concatenate([
+    cols = rng.random((E, M))
+    ys = np.concatenate([
         rng.random((E, S - 16)) * (M - 1),
         rng.integers(0, M, (E, 8)).astype(float),
-        rng.uniform(-3, M + 3, (E, 8))], axis=1), jnp.float32)
-    direct = np.asarray(pi._column_interp_pallas(cols, ys))
-    two_level = np.asarray(pi._column_interp_pallas_2l(cols, ys))
-    gather = np.asarray(pi._column_interp_gather(cols, ys))
-    # On real TPU hardware the two kernels are bitwise identical (A/B'd
-    # on-device); the CPU interpreter contracts multiply+reduce with FMA
-    # groupings that differ by 1 ulp at hi-block-boundary points, so CI
-    # asserts ulp-level agreement.
-    np.testing.assert_allclose(direct, two_level, rtol=1e-6, atol=1e-7)
-    np.testing.assert_allclose(two_level, gather, rtol=2e-6, atol=2e-7)
-
-
-@pytest.mark.parametrize("E,M,S", [
-    (502, 500, 256),    # E % _BLK != 0: padded E rows + clamped ys views
-    (500, 1000, 1000),  # S % s_blk != 0 (budget 896): masked edge S block
-    (48, 72, 160),      # smallest eligible octave (H=4), single blocks
-])
-def test_fused_cost_call_matches_reductions(E, M, S):
-    """ops/pallas_interp._fused_cost_call (the fused interp + double-
-    Simpson curve-cost kernel) vs the unfused reductions, run through the
-    interpret-mode pallas_call on CPU — fused_curve_cost's backend gate
-    means the public path never reaches the kernel off-TPU, so this calls
-    it directly (ADVICE r4). Shapes cover the padded-E clamped index maps
-    and the masked edge S block; the on-hardware pin is
-    utils/selftest.py::_check_fused_cost."""
-    import jax
-    import jax.numpy as jnp
-
-    from gaussian_process_edge_trace_tpu.ops import pallas_interp as pi
-    from gaussian_process_edge_trace_tpu.ops.integrate import (
-        simpson_nonuniform, simpson_weights)
-
-    rng = np.random.default_rng(11)
-    # Non-negative cols: the line integral is a positive well-conditioned
-    # sum (a signed one cancels and has no meaningful relative error).
-    cols = jnp.asarray(rng.random((E, M)), jnp.float32)
-    ys = jnp.asarray(np.concatenate([
-        rng.uniform(0, M - 1, (E, S - 16)),
-        rng.integers(0, M, (E, 8)).astype(float),
-        rng.uniform(-3, M + 3, (E, 8))], axis=1), jnp.float32)
-
-    fl, fa = jax.device_get(pi._fused_cost_jit(cols, ys, 1e-3))
-
-    g = jnp.asarray(pi._column_interp_gather(cols, ys, add_const=1e-3),
-                    jnp.float64)
-    ysd = jnp.asarray(ys, jnp.float64)
-    step = jnp.sqrt(1.0 + jnp.diff(ysd, axis=0) ** 2)
-    ul = np.asarray(simpson_nonuniform(g[:-1], h=step[1:], axis=0))
-    arc_w = simpson_weights(jnp.arange(E - 1, dtype=jnp.float64))
-    ua = np.asarray(jnp.sum(arc_w[:, None] * step, axis=0))
-    np.testing.assert_allclose(fl, ul, rtol=1e-4)
-    np.testing.assert_allclose(fa, ua, rtol=1e-5)
-
-
-def test_split3_bf16_exact_reconstruction():
-    """The interp kernel's 3-way bf16 split reconstructs every f32
-    bitwise (h1+h2+h3 == c), including under jit — an astype round trip
-    instead of lax.reduce_precision gets folded away by XLA's excess-
-    precision elision and silently loses the residuals."""
-    import numpy as np
-    import jax
-    import jax.numpy as jnp
-
-    from gaussian_process_edge_trace_tpu.ops.pallas_interp import \
-        _split3_bf16
-
-    rng = np.random.default_rng(7)
-    c = jnp.asarray(np.concatenate([
-        rng.random(512) * 2 - 1,
-        rng.random(64) * 1e-6,          # tiny magnitudes
-        np.float32(1) + rng.random(64) * np.float32(2**-20),  # dense ulps
-        [0.0, 1.0, -1.0, np.float32(2**-30)]]), jnp.float32)
-
-    def recon(c):
-        h1, h2, h3 = _split3_bf16(c)
-        return (h1.astype(jnp.float32) + h2.astype(jnp.float32)
-                ) + h3.astype(jnp.float32)
-
-    for f in (recon, jax.jit(recon)):
-        got = np.asarray(f(c))
-        assert np.array_equal(got.view(np.int32),
-                              np.asarray(c).view(np.int32))
-
-
-def test_solve_body_regimes_equivalent(monkeypatch):
-    """The two solve-kernel regimes — the Python-unrolled exact-slice
-    row loop (n <= _UNROLL_N, minimal flops) and the compile-light
-    fori_loop with full-height masked reduces (larger n) — perform the
-    identical substitution in the identical order; forcing the gate to 0
-    must reproduce the unrolled result to reduction-tree rounding (the
-    masked reduce sums exact zeros over a longer extent, which regroups
-    the pairwise summation by an ulp)."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    import gaussian_process_edge_trace_tpu.ops.pallas_chol as pc
-
-    rng = np.random.default_rng(7)
-    B, n, m = 3, 17, 9
-    A = rng.normal(size=(B, n, n))
-    K = jnp.asarray(A @ np.transpose(A, (0, 2, 1)) + n * np.eye(n))
-    L = pc.batched_cholesky(K)
-    rhs = jnp.asarray(rng.normal(size=(B, n, m)))
-    fwd_unrolled = np.asarray(pc._batched_solve_impl(L, rhs, True))
-    bwd_unrolled = np.asarray(pc._batched_solve_impl(L, rhs, False))
-    monkeypatch.setattr(pc, "_UNROLL_N", 0)
-    fwd_fori = np.asarray(pc._batched_solve_impl(L, rhs, True))
-    bwd_fori = np.asarray(pc._batched_solve_impl(L, rhs, False))
-    np.testing.assert_allclose(fwd_unrolled, fwd_fori,
-                               rtol=1e-14, atol=1e-16)
-    np.testing.assert_allclose(bwd_unrolled, bwd_fori,
-                               rtol=1e-14, atol=1e-16)
-
-
-def test_mchunked_solves_match_jnp(monkeypatch):
-    """Wide-RHS solves chunk the RHS along m so the aliased VMEM block
-    stays feasible (the K⁻¹ identity solves in batched_lml at large n).
-    Budget forced small so the CPU test exercises the chunk loop,
-    including an uneven tail chunk."""
-    import numpy as np
-    import jax
-    import jax.numpy as jnp
-
-    import gaussian_process_edge_trace_tpu.ops.pallas_chol as pc
-
-    rng = np.random.default_rng(1)
-    B, n, m = 3, 24, 50
-    # Force chunking: l block = n*n*128*8 bytes; leave room for m≈16.
-    monkeypatch.setattr(pc, "_VMEM_SOLVE_BUDGET",
-                        n * n * 128 * 8 + 16 * n * 128 * 8)
-    A = rng.normal(size=(B, n, n))
-    K = jnp.asarray(A @ np.transpose(A, (0, 2, 1)) + n * np.eye(n))
-    L = pc.batched_cholesky(K)
-    Lr = jnp.linalg.cholesky(K)
-    rhs = jnp.asarray(rng.normal(size=(B, n, m)))
-    np.testing.assert_allclose(
-        np.asarray(pc.batched_forward_solve(L, rhs)),
-        np.asarray(jax.scipy.linalg.solve_triangular(Lr, rhs, lower=True)),
-        rtol=1e-6, atol=1e-8)
-    np.testing.assert_allclose(
-        np.asarray(pc.batched_backward_solve(L, rhs)),
-        np.asarray(jax.scipy.linalg.solve_triangular(
-            jnp.transpose(Lr, (0, 2, 1)), rhs, lower=False)),
-        rtol=1e-6, atol=1e-8)
+        rng.uniform(-3, M + 3, (E, 8))], axis=1)
+    ys[:, 0], ys[:, 1] = -5.0, M + 5.0
+    got = np.asarray(column_interp(jnp.asarray(cols), jnp.asarray(ys),
+                                   add_const=1e-3))
+    want = np.stack([np.interp(ys[e], np.arange(M), cols[e])
+                     for e in range(E)]) + 1e-3
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(got[:, 0], cols[:, 0] + 1e-3, rtol=1e-12)
+    np.testing.assert_allclose(got[:, 1], cols[:, -1] + 1e-3, rtol=1e-12)

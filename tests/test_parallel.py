@@ -1,5 +1,5 @@
 """Multi-device sharding tests on the 8-device virtual CPU mesh
-(SURVEY.md §4: the TPU analogue of a fake backend)."""
+(SURVEY.md §4: the analogue of a fake backend)."""
 
 import gc
 
@@ -112,9 +112,8 @@ def test_sharded_equals_vmap_exactly(mesh_shape):
     EXACTLY equal on any mesh, because posterior draws are keyed by global
     sample index and selection runs replicated (gpet.py:839's seed
     determinism extended across meshes). Float telemetry agrees to a few
-    f32 ulps — XLA may reassociate contractions differently for different
-    local batch shapes ((E, S/k) vs (E, S) matmuls), which no sharding
-    design can prevent."""
+    f32 ulps — XLA's CPU matmuls may reassociate (E, S/k) vs (E, S)
+    contractions."""
     grads, inits, edges = _frames(8)
     cfg = _cfg_for(inits, grads.shape[1:])
     data = make_batch_data(cfg, grads, inits)
@@ -136,23 +135,61 @@ def test_sharded_equals_vmap_exactly(mesh_shape):
 
 
 def test_batch_tile_divisor():
+    """The tile width depends on the batch size alone — B up to
+    _BATCH_TILE, else _BATCH_TILE with the batch padded to a multiple —
+    so a data shard can run its frames at the width one device would."""
     from gaussian_process_edge_trace_tpu.parallel.sharded import (
         _BATCH_TILE, _batch_tile)
-    assert _BATCH_TILE == 8              # device-profiled sweet spot (r4)
+    assert _BATCH_TILE == 8
+    assert _batch_tile(1) == 1
     assert _batch_tile(4) == 4           # fits: no chunking
     assert _batch_tile(8) == 8
     assert _batch_tile(64) == 8          # 8 x 8 tiles
     assert _batch_tile(24) == 8
-    assert _batch_tile(20) == 5          # < floor: caller falls back
-    assert _batch_tile(17) == 1          # prime: caller falls back to vmap
+    assert _batch_tile(20) == 8          # 3 tiles, the last padded
+    assert _batch_tile(17) == 8
+
+
+def test_trace_tiles_pad_and_cut(monkeypatch):
+    """_trace_tiles pads the batch with copies of its last frame up to a
+    multiple of the tile, traces every tile at that width and returns the
+    B real frames in order."""
+    from gaussian_process_edge_trace_tpu.parallel import sharded as sh
+
+    seen = []
+
+    def fake_local(cfg, d, st, n_sample_shards, sample_axis):
+        seen.append(d.grad_img.shape[0])
+        return st
+
+    monkeypatch.setattr(sh, "_trace_local", fake_local)
+    B, tile = 5, 2
+    data = sh.TracerData(
+        grad_img=jnp.arange(B * 3.0).reshape(B, 3),
+        grad_kde=jnp.zeros((B, 3)), grad_cols=jnp.zeros((B, 3)),
+        L_prior_unit=jnp.zeros((4, 2)), x_grid=jnp.arange(3),
+        init_x=jnp.zeros((B, 2), jnp.int32),
+        init_y=jnp.zeros((B, 2), jnp.int32))
+    states = {"frame": jnp.arange(B), "v": jnp.arange(B * 2.0).reshape(B, 2)}
+    out = sh._trace_tiles(None, data, states, tile)
+    assert seen == [tile]                # lax.map traces one tile body
+    np.testing.assert_array_equal(np.asarray(out["frame"]), np.arange(B))
+    np.testing.assert_array_equal(np.asarray(out["v"]),
+                                  np.asarray(states["v"]))
+    seen.clear()
+    out = sh._trace_tiles(None, data, states, 8)     # one padded tile
+    assert seen == [8]
+    np.testing.assert_array_equal(np.asarray(out["frame"]), np.arange(B))
 
 
 @pytest.mark.slow
 def test_batch_tiling_matches_full_vmap(monkeypatch):
     """Wide batches run as a lax.map over _BATCH_TILE-frame vmap chunks
-    (the B=64 serving fix, VERDICT r3 item 2). Forcing a tile of 2 on a
+    (the B=64 serving fix). On the CPU, forcing a tile of 2 on a
     4-frame batch must reproduce the full-width vmap: the algorithmic
-    trajectory exactly, float telemetry to reassociation ulps."""
+    trajectory exactly, float telemetry to reassociation ulps. (On a GPU
+    the tile width may move the numerics, which is why sharded runs keep
+    the single-device width.)"""
     from gaussian_process_edge_trace_tpu.parallel import sharded as sh
 
     grads, inits, edges = _frames(4)

@@ -220,7 +220,7 @@ def test_multi_output_matches_sklearn():
 
 
 def test_sample_y_matheron_prior_cache():
-    # VERDICT r2 item 3: fitted-model sample_y must not factorise the
+    # fitted-model sample_y must not factorise the
     # nq x nq predictive covariance per call; the only factorisation is
     # of the prior, computed once per query grid and cached.
     X, y = _data()
@@ -245,7 +245,7 @@ def test_sample_y_matheron_prior_cache():
 @pytest.mark.parametrize("shape", ["c_rbf", "c_matern", "c_rbf_white",
                                    "bare_rbf"])
 def test_accepts_stock_sklearn_kernel_objects(shape):
-    """VERDICT r3 item 6: the reference's exported GPR accepts arbitrary
+    """the reference's exported GPR accepts arbitrary
     sklearn kernel objects (sklearn_gpr.py:140-180; composed at
     gpet.py:165-178). Construct from REAL sklearn.gaussian_process.kernels
     instances and check the fit matches the native-kernel build exactly."""
@@ -288,7 +288,7 @@ def test_stock_sklearn_kernel_rejections():
 
 
 def test_multi_output_sample_y_single_dispatch():
-    """VERDICT r3 item 10: the multi-output sample_y path is one vmapped
+    """the multi-output sample_y path is one vmapped
     dispatch over targets (not a host loop), and its draws are unchanged
     from the per-target fold_in construction."""
     rng = np.random.default_rng(0)

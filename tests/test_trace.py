@@ -42,37 +42,46 @@ def test_curve_kde_matches_oracle():
     np.testing.assert_allclose(got, want, atol=1e-6)
 
 
-@pytest.mark.parametrize("E,S,M", [
-    (500, 100, 500),     # demo kept-curve shape (below the TPU gate)
-    (37, 33, 129),       # E % _BLK2L != 0 (padded rows), odd M
-    (48, 5000, 257),     # 3 chunks + masked S edge under the patched
-                         # _S_BLK2L=2048 below
-    (1000, 1000, 1000),  # the 1000² S=10⁴ kept-curve shape
+def _binning_oracle(y, w, M):
+    """Two-tap linear binning by np.add.at: each in-image point puts
+    w·(1−f) on padded row floor(y)+1 and w·f on the row after; points
+    outside [0, M-1] are deleted (gpet.py:498-500)."""
+    E, S = y.shape
+    H = np.zeros((M + 2, E))
+    ee = np.broadcast_to(np.arange(E)[:, None], (E, S))
+    ww = np.broadcast_to(w[None, :], (E, S))
+    keep = (y >= 0) & (y <= M - 1)
+    yp = y[keep] + 1.0
+    lo = np.floor(yp).astype(int)
+    f = yp - lo
+    np.add.at(H, (lo, ee[keep]), ww[keep] * (1.0 - f))
+    np.add.at(H, (np.minimum(lo + 1, M + 1), ee[keep]), ww[keep] * f)
+    return H
+
+
+@pytest.mark.parametrize("E,S,M,chunk_samples", [
+    (500, 100, 500, None),     # demo kept-curve shape, one block
+    (37, 33, 129, None),       # odd E and M
+    (48, 5000, 257, 2048),     # 3 chunks, the last one padded
+    (1000, 1000, 1000, 16),    # the 1000² S=10⁴ kept-curve shape, chunked
 ])
-def test_binning_2l_matches_dense(E, S, M, monkeypatch):
-    """trace/pallas_kde._binning_2l (the two-level ADJOINT binning: compact
-    taps + block one-hot MXU contraction, VERDICT r4 item 1c) vs the dense
-    hat contraction, via the interpret-mode pallas_call on CPU. The gate
-    (column_binning, TPU-only) never reaches it off-TPU, so this calls it
-    directly; the on-hardware pin is utils/selftest.py::_check_binning_2l.
-    Includes exact integers, the image edges and out-of-image sentinels;
-    also forces multi-chunk accumulation + the masked S edge chunk by
-    shrinking _S_BLK2L."""
-    import jax
+def test_column_binning_matches_two_tap_oracle(E, S, M, chunk_samples,
+                                               monkeypatch):
+    """trace/kde.py::column_binning (the dense hat contraction, scanned in
+    chunks above _CHUNK_ELEMS) vs a NumPy two-tap np.add.at oracle, with
+    exact integers, both image edges and out-of-image points."""
+    from gaussian_process_edge_trace_tpu.trace import kde
 
-    from gaussian_process_edge_trace_tpu.trace import pallas_kde as pk
-
-    monkeypatch.setattr(pk, "_S_BLK2L", 2048)  # force chunked + edge mask
+    if chunk_samples is not None:
+        monkeypatch.setattr(kde, "_CHUNK_ELEMS",
+                            (M + 2) * E * chunk_samples)
     rng = np.random.default_rng(7)
-    y = np.asarray(rng.uniform(-3, M + 2, (E, S)), np.float32)
+    y = rng.uniform(-3, M + 2, (E, S))
     y[:, :4] = [0.0, M - 1.0, M / 2, -1.0]
-    yj = jnp.asarray(y)
-    w = jnp.asarray(rng.random(S), jnp.float32)
-    ref = np.asarray(pk._binning_dense_chunked(yj, w, M))
-    got = np.asarray(jax.jit(
-        lambda a, b: pk._binning_2l.__wrapped__(a, b, M))(yj, w))
-    np.testing.assert_allclose(got, ref, rtol=1e-5,
-                               atol=1e-6 * np.max(np.abs(ref)))
+    w = rng.random(S)
+    got = np.asarray(kde.column_binning(jnp.asarray(y), jnp.asarray(w), M))
+    want = _binning_oracle(y, w, M)
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12)
 
 
 def test_curve_kde_close_to_direct_gaussian_sum():
@@ -149,44 +158,89 @@ def test_curve_costs_match_oracle():
     np.testing.assert_allclose(got, want, rtol=1e-10)
 
 
-def test_curve_costs_fused_and_unfused_paths_agree(monkeypatch):
-    """curve_costs' fused early-return and the unfused reductions compute
-    the same costs (ADVICE r4): on CPU the fused arm is forced by
-    monkeypatching the (backend-gated) fused_curve_cost with a direct
-    _fused_cost_call, so a future eligibility-gate change cannot silently
-    fork the cost semantics between the two paths."""
-    import jax.numpy as jnp
+def _cost_case(rng, M, E, S):
+    grad = rng.uniform(0, 1, (M, E + 8))
+    x = np.arange(3, 3 + E)
+    y = _random_curves(rng, M, M, 3, E, S)
+    y[:, :3] = [-4.0, M + 4.0, M - 1.0]        # clamped at both edges
+    return grad, x, y
 
-    from gaussian_process_edge_trace_tpu.ops import pallas_interp as pi
+
+@pytest.mark.parametrize("E,S,even", [
+    (48, 160, "simpson"),   # one row chunk; S % block != 0: masked edge
+    (200, 70, "simpson"),   # 99 pairs over 4 row chunks, the last partial
+    (134, 40, "avg"),       # even E: the "avg" rule coincides
+    (37, 11, "simpson"),    # odd E: kernel block + Cartwright tail
+    (71, 20, "avg"),        # odd E: two kernel passes + trapezoids
+    (5, 9, "avg"),          # smallest odd E
+])
+def test_fused_cost_kernel_matches_curve_costs(E, S, even):
+    """ops/fused_cost.py (the Triton kernel, here in the Pallas
+    interpreter) vs the plain curve_costs path and the per-curve NumPy
+    oracle: f32 reassociation only."""
+    from gaussian_process_edge_trace_tpu.ops.fused_cost import (
+        fused_curve_costs)
+
+    rng = np.random.RandomState(E + S)
+    M = 64
+    grad, x, y = _cost_case(rng, M, E, S)
+    cols = jnp.asarray(grad.T[x], jnp.float32)
+    got = np.asarray(fused_curve_costs(cols, jnp.asarray(y, jnp.float32),
+                                       kde_thresh=1e-3, even=even,
+                                       interpret=True))
+    plain = np.asarray(curve_costs(jnp.asarray(grad), jnp.asarray(x),
+                                   jnp.asarray(y), even=even))
+    np.testing.assert_allclose(got, plain, rtol=1e-5)
+    if even == "simpson":
+        want = np.array([oracle_cost(grad, x, y[:, s]) for s in range(S)])
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_fused_cost_path_choice(monkeypatch):
+    """The kernel-or-plain choice (scoring.use_fused_cost) is keyed on the
+    platform alone: the kernel on a GPU for every E >= 4, odd or even; the
+    kernel refuses E < 4, and the plain path scores those."""
+    import jax
+
+    from gaussian_process_edge_trace_tpu.ops.fused_cost import (
+        fused_curve_costs)
     from gaussian_process_edge_trace_tpu.trace import scoring
 
-    rng = np.random.RandomState(5)
-    M, N, x_st, E, S = 64, 80, 3, 48, 160   # even E, eligible shape
-    grad = rng.uniform(0, 1, (M, N))
-    x = np.arange(x_st, x_st + E)
-    y = _random_curves(rng, M, N, x_st, E, S)
+    assert not scoring.use_fused_cost(500)               # on the CPU
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert scoring.use_fused_cost(500)
+    assert scoring.use_fused_cost(499)                   # odd E too
+    assert not scoring.use_fused_cost(3)
+    monkeypatch.undo()
 
-    # Unjitted call so the monkeypatched global is actually consulted
-    # (the jit cache would otherwise replay the first-traced path).
-    fn = scoring.curve_costs.__wrapped__
-    unfused_cost = np.asarray(
-        fn(jnp.asarray(grad), jnp.asarray(x), jnp.asarray(y),
-           kde_thresh=1e-3, cols=None, even="simpson"))
+    rng = np.random.RandomState(9)
+    grad, x, y = _cost_case(rng, 40, 3, 11)
+    with pytest.raises(ValueError, match="E >= 4"):
+        fused_curve_costs(jnp.asarray(grad.T[x]), jnp.asarray(y),
+                          interpret=True)
+    got = np.asarray(curve_costs(jnp.asarray(grad), jnp.asarray(x),
+                                 jnp.asarray(y)))
+    want = np.array([oracle_cost(grad, x, y[:, s]) for s in range(11)])
+    np.testing.assert_allclose(got, want, rtol=1e-10)
 
-    def forced_fused(cols, ys, kde_thresh=0.0):
-        assert cols.shape[0] % 2 == 0, "fused path requires even E"
-        return pi._fused_cost_jit(jnp.asarray(cols, jnp.float32),
-                                  jnp.asarray(ys, jnp.float32),
-                                  float(kde_thresh))
 
-    monkeypatch.setattr(scoring, "fused_curve_cost", forced_fused)
-    fused_cost = np.asarray(
-        fn(jnp.asarray(grad), jnp.asarray(x), jnp.asarray(y),
-           kde_thresh=1e-3, cols=None, even="simpson"))
+@pytest.mark.parametrize("E", [40, 41])
+def test_fused_cost_independent_of_draw_width(E):
+    """A sample's cost from the kernel has the same bits whether it is
+    scored with the whole draw or with a slice of it — what lets a
+    sample-sharded trace score its shard as one device scores the draw."""
+    from gaussian_process_edge_trace_tpu.ops.fused_cost import (
+        fused_curve_costs)
 
-    # Fused kernel is f32; the unfused CPU path runs f64 under the test
-    # config — agreement to f32 accumulation accuracy.
-    np.testing.assert_allclose(fused_cost, unfused_cost, rtol=2e-4)
+    rng = np.random.RandomState(E)
+    grad, x, y = _cost_case(rng, 64, E, 150)
+    cols = jnp.asarray(grad.T[x], jnp.float32)
+    y = jnp.asarray(y, jnp.float32)
+    whole = np.asarray(fused_curve_costs(cols, y, interpret=True))
+    for lo, hi in [(0, 75), (75, 150), (37, 113)]:
+        part = np.asarray(fused_curve_costs(cols, y[:, lo:hi],
+                                            interpret=True))
+        np.testing.assert_array_equal(part, whole[lo:hi])
 
 
 def test_best_curves_topk():

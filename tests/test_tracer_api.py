@@ -260,7 +260,7 @@ def test_plot_methods_smoke():
 
 
 def test_X_tile_is_lazy():
-    # VERDICT r2 weak #3: constructing the tracer must not allocate the
+    # constructing the tracer must not allocate the
     # O(E*S) tiled X mirror (800 MB at BASELINE config-4 scale); it
     # materialises only on attribute access (gpet.py:115 parity).
     grad, edge, init = _setup()
